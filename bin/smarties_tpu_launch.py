@@ -28,7 +28,7 @@ BUILTIN_ENVS = {"cartpole", "cartpole_discrete", "pendulum",
                 "mountaincar"}
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("app", help="built-in env name or path to an app script")
     p.add_argument("--recipe", default="VRACER",
@@ -54,13 +54,15 @@ def main():
     p.add_argument("--simDirs", action="store_true",
                    help="run each env app launch in its own "
                         "simulation_%%03u_%%05u directory")
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     run_dir = os.path.join(args.runprefix, args.runname)
     os.makedirs(run_dir, exist_ok=True)
 
+    from smarties_tpu.utils.compile_cache import enable_compile_cache
     from smarties_tpu.utils.config import HyperParameters
     from smarties_tpu.utils.recipes import RECIPES
+    enable_compile_cache()
     if args.recipe in RECIPES:
         cfg = HyperParameters.from_dict(RECIPES[args.recipe])
     else:
@@ -110,6 +112,7 @@ def main():
                      obs_log=args.logAllSamples)
         tr.train(args.nTrainSteps)
         tr.save(os.path.join(run_dir, "checkpoint.pkl"))
+        tr.close()
     else:
         # external app script: must define app_main(comm)
         mod = runpy.run_path(args.app)

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
 """Cluster submission helper: generate (and optionally submit) a batch
-script that launches smarties_tpu training on a SLURM cluster or a GCP
-TPU pod slice.
+script that launches smarties_tpu training on a SLURM cluster.
 
 Reference analog: bin/smarties.py's Euler / Piz Daint SLURM presets
 (bin/smarties.py:30-43 and the sbatch templates further down). The
@@ -12,13 +11,10 @@ the coordinator address/rank env vars and runs the same launcher CLI on
 every node.
 
 Presets:
-  --preset slurm      generic SLURM cluster (CPU or GPU-backed JAX)
-  --preset slurm-tpu  SLURM-managed TPU hosts (one task per host)
-  --preset gcp-tpu    `gcloud compute tpus tpu-vm ssh --worker=all` pod
-                      slice command (printed, not submitted)
+  --preset slurm      generic SLURM cluster (one task per host)
 
 The generated script is written to <runprefix>/<runname>/submit.sh and
-printed; pass --submit to exec sbatch (SLURM presets) immediately.
+printed; pass --submit to exec sbatch immediately.
 """
 import argparse
 import os
@@ -34,7 +30,7 @@ SLURM_TEMPLATE = """#!/bin/bash -l
 #SBATCH --ntasks-per-node=1
 #SBATCH --cpus-per-task={cpus}
 #SBATCH --time={time}
-{partition_line}{account_line}{extra_lines}
+{partition_line}{account_line}
 # one python process per host; jax.distributed wires the mesh
 export SMARTIES_TPU_COORD_ADDR=$(scontrol show hostnames \
   "$SLURM_JOB_NODELIST" | head -n1):{port}
@@ -46,18 +42,11 @@ srun --kill-on-bad-exit=1 bash -c '
 '
 """
 
-GCP_TEMPLATE = """# Run on every worker of a TPU pod slice (JAX discovers the
-# slice topology itself on Cloud TPU; no coordinator env needed):
-gcloud compute tpus tpu-vm ssh {tpu_name} --zone={zone} --worker=all \\
-  --command='cd {workdir} && python {launcher} {app} {launch_args}'
-"""
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("app", help="built-in env name or app script path")
     ap.add_argument("--preset", default="slurm",
-                    choices=["slurm", "slurm-tpu", "gcp-tpu"])
+                    choices=["slurm"])
     ap.add_argument("--runname", default="run00")
     ap.add_argument("--runprefix", default="runs")
     ap.add_argument("--nodes", type=int, default=1)
@@ -66,10 +55,8 @@ def main():
     ap.add_argument("--partition", default=None)
     ap.add_argument("--account", default=None)
     ap.add_argument("--port", type=int, default=12346)
-    ap.add_argument("--tpu-name", default="tpu-pod")
-    ap.add_argument("--zone", default="us-central2-b")
     ap.add_argument("--submit", action="store_true",
-                    help="sbatch the generated script (SLURM presets)")
+                    help="sbatch the generated script")
     args, passthrough = ap.parse_known_args()
 
     run_dir = os.path.join(args.runprefix, args.runname)
@@ -81,16 +68,6 @@ def main():
         ["--runname", args.runname, "--runprefix", args.runprefix]
         + passthrough)
 
-    if args.preset == "gcp-tpu":
-        print(GCP_TEMPLATE.format(
-            tpu_name=args.tpu_name, zone=args.zone,
-            workdir=os.getcwd(), launcher=launcher, app=args.app,
-            launch_args=launch_args))
-        return
-
-    extra = ""
-    if args.preset == "slurm-tpu":
-        extra = "#SBATCH --gres=tpu:1\n"
     script = SLURM_TEMPLATE.format(
         runname=args.runname, run_dir=run_dir, nodes=args.nodes,
         cpus=args.cpus, time=args.time,
@@ -98,7 +75,7 @@ def main():
                         if args.partition else ""),
         account_line=(f"#SBATCH --account={args.account}\n"
                       if args.account else ""),
-        extra_lines=extra, port=args.port, launcher=launcher,
+        port=args.port, launcher=launcher,
         app=shlex.quote(args.app), launch_args=launch_args)
 
     path = os.path.join(run_dir, "submit.sh")

@@ -1,9 +1,9 @@
-"""smarties_tpu — a TPU-native actor-learner deep-RL framework.
+"""smarties_tpu — a JAX actor-learner deep-RL framework for one accelerator.
 
 A from-scratch JAX/XLA re-design of the capabilities of cselab/smarties
 (C++14/MPI ReF-ER actor-learner framework, Novati & Koumoutsakos ICML 2019):
 V-RACER / RACER / PPO / DQN / DPG / NAF / ACER / CMA-ES learners on top of a
-Remember-and-Forget experience-replay core, re-expressed TPU-first:
+Remember-and-Forget experience-replay core, re-expressed for an accelerator:
 
 - one jitted train step and one jitted act step instead of threads/sockets/MPI
   (reference: source/smarties/Core/{Master,Worker}.cpp);

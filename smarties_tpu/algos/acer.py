@@ -1,6 +1,6 @@
 """ACER: actor-critic with experience replay (episode windows).
 
-TPU-native re-expression of the reference ACER (source/smarties/Learners/
+JAX re-expression of the reference ACER (source/smarties/Learners/
 ACER.{h,cpp}): episode-sampled training over windows of up to
 SEQ_CUTOFF=200 steps; three heads over an optional shared encoder — actor
 (mean + param stdev, with a target actor), V critic, and an advantage net
@@ -73,10 +73,9 @@ class ACER:
 
     # ------------------------------------------------------------------
     def presample_fn(self, keys, rs, batch, axis_name=None):
-        """Hoisted episode + window-start sampling (r5, VERDICT r4 #7):
-        the in-body RNG (split + weighted choice + randint) costs
-        ~100+ us per scan iteration on this backend; one vmapped batch
-        outside the scan is ~free. Bit-identical key chain to the
+        """Hoisted episode + window-start sampling: one vmapped batch of
+        RNG draws (split + weighted choice + randint) outside the scan
+        instead of one per iteration. Bit-identical key chain to the
         in-body path (fold_in by shard -> split(key, 4) -> k_ep/k_start);
         the window-start modulo by episode length is applied in-body
         where rs is current (lengths only change at commit boundaries,

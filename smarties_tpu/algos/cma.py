@@ -1,6 +1,6 @@
 """CMA-ES learner: gradient-free policy search, diagonal covariance.
 
-TPU-native re-expression of the reference CMALearner + CMA_Optimizer
+JAX re-expression of the reference CMALearner + CMA_Optimizer
 (source/smarties/Learners/CMALearner.cpp, Network/CMA_Optimizer.{h,cpp}):
 a population of ESpopSize weight vectors (member 0 == the mean, odd members
 fresh Gaussian samples, even members mirrored, CMA_Optimizer.cpp:158-178);

@@ -1,6 +1,6 @@
 """DPG/DDPG: deterministic policy gradient with ReF-ER.
 
-TPU-native re-expression of the reference DPG (source/smarties/Learners/
+JAX re-expression of the reference DPG (source/smarties/Learners/
 DPG.{h,cpp}): shared encoder + actor (mean + param-stdev exploration) +
 Q-critic taking the action as an extra input; target networks on all parts;
 critic learning rate x10 and L2 1e-4 (DPG.cpp:201-203); Retrace targets
@@ -19,7 +19,7 @@ here r_{t+1}.
 Recurrent nets (nnType LSTM/GRU/RNN): the recurrence lives in the shared
 encoder trunk (created implicitly from nnLayerSizes[0] when no encoder is
 configured) and the actor/critic heads are feedforward on its features —
-the TPU-idiomatic layout for multi-head recurrent learners; the reference
+one scanned recurrence shared by all heads; the reference
 instead makes each net recurrent via Builder. BPTT windows come from the
 same shared machinery as RACER (base.py, MemoryBuffer.cpp:393-402).
 """
@@ -176,7 +176,7 @@ class DPG:
             key = jax.random.fold_in(key, jax.lax.axis_index(axis_name))
         if sample_override is not None:
             ep, t = sample_override   # hoisted pre-sampling (base.py
-            # presample_uniform: in-body RNG costs ~100 us/step)
+            # presample_uniform: no RNG primitives in the scan body)
         else:
             k_samp, = jax.random.split(key, 1)
             ep, t = rb.sample(k_samp, rs, B, self.cfg.dataSamplingAlgo)

@@ -1,6 +1,6 @@
 """DQN with Boltzmann (soft) policy and optional ReF-ER + Retrace.
 
-TPU-native re-expression of the reference DQN (source/smarties/Learners/
+JAX re-expression of the reference DQN (source/smarties/Learners/
 DQN.cpp, compiled with DQN_USE_POLICY): the Q-network doubles as an
 Exp-normalized categorical policy (Discrete_policy_t<Exp> over raw Q values)
 enabling importance weights and ReF-ER; 1-step double-Q targets with a
@@ -143,7 +143,7 @@ class DQN:
             key = jax.random.fold_in(key, jax.lax.axis_index(axis_name))
         if sample_override is not None:
             ep, t = sample_override   # hoisted pre-sampling (base.py
-            # presample_uniform: in-body RNG costs ~100 us/step)
+            # presample_uniform: no RNG primitives in the scan body)
         else:
             k_samp, = jax.random.split(key, 1)
             ep, t = rb.sample(k_samp, rs, B, self.cfg.dataSamplingAlgo)

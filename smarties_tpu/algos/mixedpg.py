@@ -1,6 +1,6 @@
 """MixedPG: mixed stochastic + deterministic policy gradient (experimental).
 
-TPU-native re-expression of the reference MixedPG
+JAX re-expression of the reference MixedPG
 (source/smarties/Learners/MixedPG.{h,cpp}): an actor producing
 [policy mean, V head, (param) stdev] and a Q-critic with the action as an
 extra input; the policy gradient mixes the off-policy stochastic PG with
@@ -122,7 +122,7 @@ class MixedPG:
             key = jax.random.fold_in(key, jax.lax.axis_index(axis_name))
         if sample_override is not None:
             ep, t = sample_override   # hoisted pre-sampling (base.py
-            # presample_uniform: in-body RNG costs ~100 us/step)
+            # presample_uniform: no RNG primitives in the scan body)
         else:
             k_samp, = jax.random.split(key, 1)
             ep, t = rb.sample(k_samp, rs, B, cfg.dataSamplingAlgo)

@@ -1,6 +1,6 @@
 """NAF: normalized advantage functions with quadratic advantage.
 
-TPU-native re-expression of the reference NAF (source/smarties/Learners/
+JAX re-expression of the reference NAF (source/smarties/Learners/
 NAF.{h,cpp}, default Param_advantage == Quadratic_advantage): one network
 outputs [V, lower-triangular L params, mean] plus a trainable stdev head
 used only for exploration; Q(s,a) = V - 0.5 (a-m)^T LL^T (a-m). Targets are
@@ -167,7 +167,7 @@ class NAF:
             key = jax.random.fold_in(key, jax.lax.axis_index(axis_name))
         if sample_override is not None:
             ep, t = sample_override   # hoisted pre-sampling (base.py
-            # presample_uniform: in-body RNG costs ~100 us/step)
+            # presample_uniform: no RNG primitives in the scan body)
         else:
             k_samp, = jax.random.split(key, 1)
             ep, t = rb.sample(k_samp, rs, B, self.cfg.dataSamplingAlgo)

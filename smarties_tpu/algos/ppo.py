@@ -1,6 +1,6 @@
 """PPO: on-policy clipped-surrogate policy optimization with GAE.
 
-TPU-native re-expression of the reference PPO (source/smarties/Learners/
+JAX re-expression of the reference PPO (source/smarties/Learners/
 PPO.{h,cpp}, PPO_common.cpp, PPO_train.cpp): horizon buffer of
 nHorizon == maxTotObsNum fresh transitions, nEpochs == batchSize/obsPerStep
 passes of minibatch updates, then the buffer is cleared (PPO.cpp:96-115);
@@ -184,7 +184,7 @@ class PPO:
             key = jax.random.fold_in(key, jax.lax.axis_index(axis_name))
         if sample_override is not None:
             ep, t = sample_override   # hoisted pre-sampling (base.py
-            # presample_uniform: in-body RNG costs ~100 us/step)
+            # presample_uniform: no RNG primitives in the scan body)
         else:
             k_samp, = jax.random.split(key, 1)
             ep, t = rb.sample(k_samp, rs, B, self.cfg.dataSamplingAlgo)

@@ -1,6 +1,6 @@
 """RACER/V-RACER with CMA-ES optimization (ESpopSize > 1).
 
-TPU-native re-expression of the reference's derivative-free RACER path
+JAX re-expression of the reference's derivative-free RACER path
 (VRACER_CMA.json recipe): Learner_approximator::spawnTrainTasks loops the
 Train kernel over every population member computing per-member rho / A_RET
 / DKL (RACER_train.cpp:62-66), RACER::prepareCMALoss mixes them into

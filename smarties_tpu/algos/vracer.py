@@ -1,6 +1,6 @@
 """RACER / V-RACER: off-policy policy gradient with ReF-ER + Retrace.
 
-TPU-native re-expression of the reference's RACER template family
+JAX re-expression of the reference's RACER template family
 (source/smarties/Learners/RACER.{h,cpp}, RACER_common.cpp, RACER_train.cpp),
 covering the three factory instantiations (AlgoFactory.cpp:96-153):
 
@@ -215,11 +215,10 @@ class VRacer:
         else:
             # ONE forward over [s_t; s_t1] instead of two: the t+1 values
             # (V(s_T) refresh, RACER_train.cpp:22-27) ride along in the
-            # same kernel chain — halves the per-step kernel count, which
-            # is what bounds small-model steps (~25 us/kernel backend
-            # latency floor, docs/RESULTS.md r3 correction). The s_t1
-            # rows get ZERO cotangents in the pullback, so gradients are
-            # bit-identical to the two-forward version.
+            # same kernel chain — halves the per-step kernel count of a
+            # small-model step. The s_t1 rows get ZERO cotangents in the
+            # pullback, so gradients are bit-identical to the
+            # two-forward version.
             B2 = mb.s_t.shape[0]
             xcat = jnp.concatenate([mb.s_t, mb.s_t1], axis=0)
             out_cat, vjp_fn = jax.vjp(lambda p: fwd(p, xcat), params)

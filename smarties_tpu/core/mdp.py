@@ -1,6 +1,6 @@
 """MDP problem description: state/action spaces, scaling, codecs.
 
-TPU-native equivalent of the reference's MDPdescriptor / StateInfo /
+JAX equivalent of the reference's MDPdescriptor / StateInfo /
 ActionInfo (source/smarties/Core/StateAction.h). All device-side mappings are
 pure jnp functions over static (python-level) metadata, so they trace cleanly
 under jit and vmap.

@@ -1,8 +1,8 @@
 """Function approximators: MLP / LSTM / GRU stacks with a param head.
 
-TPU-native replacement of the reference's hand-written NN library
+JAX replacement of the reference's hand-written NN library
 (source/smarties/Network/{Network,Builder}.{h,cpp}, Layers/*): layers become
-batched jnp matmuls under jit (MXU) instead of per-sample GEMV
+batched jnp matmuls under jit instead of per-sample GEMV
 (Layers.h:33-61 GEMVomp); BPTT becomes lax.scan over time.
 
 Init conventions follow the reference exactly:
@@ -125,10 +125,11 @@ def _s2d_stride(c0: "Conv2DDesc") -> int:
     stride-1 conv (blocked s*s*in_c input channels), else 0.
 
     Applicability: strided, filter and image divisible by the stride,
-    and a small input depth (the case the MXU handles poorly — e.g. the
-    Mnih 8x8/4 conv over 4 stacked frames becomes a 2x2/1 conv over 64
-    channels). Opt out with SMT_NO_S2D=1 (bit-compat with pre-r5
-    artifacts; the transform is numerically equivalent, not bitwise).
+    and a small input depth (a shallow contraction for a matrix unit —
+    e.g. the Mnih 8x8/4 conv over 4 stacked frames becomes a 2x2/1 conv
+    over 64 channels). Opt out with SMT_NO_S2D=1 (bit-compat with
+    pre-r5 artifacts; the transform is numerically equivalent, not
+    bitwise).
     """
     import os
     if os.environ.get("SMT_NO_S2D"):
@@ -160,11 +161,10 @@ class NetSpec:
     # conv preprocessing stack applied to the (flattened-image) input
     # before the dense layers (Builder::addConv2d, Conv2Dfactory.h)
     conv: Tuple[Conv2DDesc, ...] = ()
-    # matmul/conv compute dtype: "bfloat16" runs the MXU contractions in
-    # bf16 with f32 accumulation (preferred_element_type) — the TPU-
-    # idiomatic precision for the conv/dense FLOPs (the reference's
-    # nnReal f32/f64 switch, Definitions.h:21-57, maps to this choice);
-    # parameters, activations and reductions stay f32
+    # matmul/conv compute dtype: "bfloat16" runs the contractions in
+    # bf16 with f32 accumulation (the reference's nnReal f32/f64 switch,
+    # Definitions.h:21-57, maps to this choice); parameters, activations
+    # and reductions stay f32
     compute_dtype: str = "float32"
 
     @property
@@ -294,9 +294,8 @@ def apply_net(params: Dict, spec: NetSpec, x, carry=()):
     cdt = jnp.bfloat16 if spec.compute_dtype == "bfloat16" else None
 
     def mm(a, w):
-        """MXU contraction in the compute dtype (the MXU accumulates
-        f32 internally either way); explicit upcast so the VJP recasts
-        cotangents instead of mixing dtypes."""
+        """Contraction in the compute dtype; explicit upcast so the VJP
+        recasts cotangents instead of mixing dtypes."""
         if cdt is None:
             return a @ w
         return (a.astype(cdt) @ w.astype(cdt)).astype(jnp.float32)
@@ -341,11 +340,10 @@ def apply_net(params: Dict, spec: NetSpec, x, carry=()):
             w = layer["W"].astype(cdt) if cdt is not None else layer["W"]
             if ci == 0 and s2d:
                 # space-to-depth (MLPerf-style): an [K,K,Cin,O] stride-s
-                # conv over tiny Cin is MXU-hostile (the systolic array
-                # wants deep input channels); re-express it EXACTLY as a
-                # [K/s,K/s,s*s*Cin,O] stride-1 conv over s*s-deep
-                # blocked pixels. Same index set, summed in a different
-                # order -> numerically equivalent (not bitwise);
+                # conv over tiny Cin is a shallow contraction; re-express
+                # it EXACTLY as a [K/s,K/s,s*s*Cin,O] stride-1 conv over
+                # s*s-deep blocked pixels. Same index set, summed in a
+                # different order -> numerically equivalent (not bitwise);
                 # parameters stay in the reference [K,K,Cin,O] layout
                 # (checkpoint compat), transformed at trace time (tiny).
                 s = s2d
@@ -361,7 +359,6 @@ def apply_net(params: Dict, spec: NetSpec, x, carry=()):
             # preferred_element_type): the conv transpose in the VJP
             # would otherwise pair an f32 cotangent with bf16 kernels
             # and fail; the astype's backward recasts the cotangent.
-            # TPU convs accumulate f32 internally either way.
             h = jax.lax.conv_general_dilated(
                 h.astype(cdt) if cdt is not None else h, w,
                 stride, "VALID",

@@ -97,7 +97,7 @@ def adam_step(params, grads, state: AdamState, cfg: AdamConfig,
 
 class FlatAdamState(NamedTuple):
     """AdamState with the moments stored as ONE flat vector across all
-    parameter leaves — the TPU-friendly layout: the whole Adam sweep is a
+    parameter leaves — the whole Adam sweep is a
     single fused elementwise kernel instead of one per leaf (the reference
     likewise runs Adam as one `omp for simd` sweep over the flat weight
     blob, Optimizer.cpp:122-155; Parameters.h stores weights flat)."""

@@ -1,6 +1,6 @@
 """Advantage-function parameterizations for the RACER family and NAF.
 
-TPU-native re-expressions of source/smarties/Math/{Zero_advantage,
+JAX re-expressions of source/smarties/Math/{Zero_advantage,
 Discrete_advantage, Gaus_advantage, Quadratic_advantage}.h. All functions
 are batched over leading axes; gradients wrt network outputs come from
 jax.grad of these compute functions — with the policy-dependent factors

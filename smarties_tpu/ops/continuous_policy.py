@@ -1,6 +1,6 @@
 """Diagonal Gaussian policy, with optionally tanh-squashed (bounded) dims.
 
-TPU-native re-expression of the reference's Continuous_policy
+JAX re-expression of the reference's Continuous_policy
 (source/smarties/Math/Continuous_policy.h): per-dim NormalPolicy (:68-210)
 for unbounded action dims and SquashedNormalPolicy (:212-390) for bounded
 dims, selected per-dim by jnp.where on a static bounded mask.

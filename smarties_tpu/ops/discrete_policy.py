@@ -1,6 +1,6 @@
 """Categorical policy over discrete options.
 
-TPU-native re-expression of the reference's Discrete_policy_t<Func>
+JAX re-expression of the reference's Discrete_policy_t<Func>
 (source/smarties/Math/Discrete_policy.h): probabilities are *not* a softmax
 but a Func-normalization: p_i = f(o_i) / sum_j f(o_j) with f = cheap SoftPlus
 by default (Discrete_policy) or exp (Boltzmann variant used by soft DQN,

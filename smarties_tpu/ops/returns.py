@@ -1,6 +1,6 @@
 """Return estimators: Retrace, Retrace+exploration-bonus, GAE.
 
-TPU-native re-expression of the reference's backward recursions
+JAX re-expression of the reference's backward recursions
 (source/smarties/ReplayMemory/MemoryProcessing.cpp:391-458):
 
   Retrace:  Qret[t] = rr[t+1] + g*( V[t+1]
@@ -121,21 +121,10 @@ def episode_return_estimate(r_scaled, value, advantage, rho, length,
 
 def batched_return_estimate(r_scaled, value, advantage, rho, length,
                             terminal, gamma, lam, mode="retrace",
-                            err_baseline=0.0, prefer_pallas=True):
-    """Batched backward recursion over the episode-slot axis.
-
-    retrace/GAE dispatch to the single-pass Pallas kernel
-    (ops/pallas_retrace.py; ~170x faster than the associative scan on the
-    full-buffer sweep at [4096, 501]); retraceExplore is non-affine and
-    keeps the sequential scan path. prefer_pallas=False forces the
-    associative-scan path — required when the caller embeds this in a
-    program that also contains lax.scan loops (the Mosaic remote-compile
-    path chokes on mixed programs).
-    """
-    if mode in ("retrace", "GAE") and prefer_pallas:
-        from smarties_tpu.ops.pallas_retrace import batched_retrace_pallas
-        return batched_retrace_pallas(r_scaled, value, advantage, rho,
-                                      length, terminal, gamma, lam, mode)
+                            err_baseline=0.0):
+    """Batched backward recursion over the episode-slot axis: the
+    per-episode estimator vmapped over slots (retrace/GAE as a log-depth
+    associative scan, retraceExplore as the sequential scan)."""
     fn = partial(episode_return_estimate, gamma=gamma, lam=lam, mode=mode,
                  err_baseline=err_baseline)
     return jax.vmap(fn)(r_scaled, value, advantage, rho, length, terminal)

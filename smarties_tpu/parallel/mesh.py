@@ -1,6 +1,6 @@
 """Device-mesh sharding for the actor-learner stack.
 
-TPU-native replacement of the reference's MPI process topology
+JAX replacement of the reference's MPI process topology
 (Settings/ExecutionInfo.cpp:209-374 figureOutWorkersPattern + the four
 communicators): one mesh axis ("learners") shards BOTH the replay ring
 (slot axis) and the vectorized envs (lane axis) — the analog of running K

@@ -1,6 +1,6 @@
 """Vectorized rollout collection: acting + env stepping + episode commit.
 
-TPU-native replacement of the reference's serving stack (Master reply
+JAX replacement of the reference's serving stack (Master reply
 threads + Communicator sockets + per-agent Learner::select,
 Core/Master.cpp:118-144, Core/Worker.cpp:144-186, Learner.cpp:30-45): all V
 environments advance in lockstep inside one jitted lax.scan; action

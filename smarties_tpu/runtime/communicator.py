@@ -11,9 +11,9 @@ Transport: the reference forks env processes connected by AF_UNIX sockets
 talk to the learner over multiprocessing pipes for control messages
 (spec, crash detection, KILL) while the per-step state/action hot path
 rides a SHARED-MEMORY slab (ShmChannel below) — the zero-copy analog of
-the reference's in-process SocketsLib buffers: pickling one state tuple
-through a pipe costs ~45 us; a slab row write + seqlock bump costs ~1 us
-(r4 serving_bench: 8.3k -> >20k states/s at 64 envs).
+the reference's in-process SocketsLib buffers: a slab row write + seqlock
+bump instead of pickling one state tuple through a pipe
+(tools/serving_bench.py measures the difference).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Re-implements the reference's Engine + master serving loop
 (source/smarties/Engine.{h,cpp}, Core/Master.cpp, Core/Worker.cpp) for the
-TPU runtime: env apps run in worker processes behind the Communicator API
+device runtime: env apps run in worker processes behind the Communicator API
 (runtime/communicator.py); the learner batches all pending agent states
 into one jitted action-selection call, assembles episodes host-side, and
 commits them to the on-device replay; training interleaves under the
@@ -178,8 +178,7 @@ class _LearnerBundle:
         def train_chunk(params, opt_state, rs, key, n):
             ks = jax.random.split(key, n)
             if can_pre:
-                # hoisted uniform pre-sampling (in-body RNG costs
-                # ~100 us/step on this backend; base.presample_uniform)
+                # hoisted uniform pre-sampling (base.presample_uniform)
                 from smarties_tpu.algos.base import presample_uniform
                 eps, ts = presample_uniform(ks, rs, cfg.batchSize)
 

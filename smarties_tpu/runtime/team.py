@@ -4,7 +4,7 @@ Re-expresses the reference's `environment_app_comm` (P6 in SURVEY §2.9):
 apps whose simulation spans several processes get an MPI communicator per
 env team (Settings/ExecutionInfo.cpp:315-332) and coordinate with
 Allgather/Allreduce/Bcast/Barrier (apps/cart_pole_distribEnv/cart-pole.cpp,
-apps/cart_pole_distribAgent/cart-pole.cpp). There is no MPI on the TPU
+apps/cart_pole_distribAgent/cart-pole.cpp). There is no MPI on the
 host side of this rebuild; the equivalent is this tiny star-topology
 collective library over multiprocessing pipes: every non-root member holds
 a duplex pipe to the team's rank 0, and each collective is a gather to

@@ -54,10 +54,9 @@ class HyperParameters:
     nnBPTTseq: int = 16
     nnLambda: float = 0.0              # L2 penalty coefficient
     outWeightsPrefac: float = 0.1      # output-layer init scale factor
-    # TPU-native extension (no reference analog; the reference's nnReal
-    # f32/f64 switch is Definitions.h:21-57): run matmul/conv MXU
-    # contractions in bf16 with f32 accumulation. Recommended for conv
-    # (Atari-scale) recipes; exact-parity tests keep f32.
+    # extension with no reference analog (the reference's nnReal f32/f64
+    # switch is Definitions.h:21-57): run matmul/conv contractions in
+    # bf16 with f32 accumulation; exact-parity tests keep f32.
     nnBf16: bool = False
     # DQN exploration mode (reference compile switch DQN_USE_POLICY,
     # DQN.cpp:15): False = Boltzmann-over-Q + ReF-ER (the reference's

@@ -3,7 +3,7 @@
 Reference: Utils/Profiler.{h,cpp} — named start/stop scoped timers whose
 percent-of-total table prints periodically (Learner.cpp:135-145). The
 reference wraps every serving/training phase (keys DATA/SAMP/FWD/CMP/BCK/
-ADDW/GRAD/MPI/PRE/FILTER/FIND/STAT/LOSS); on TPU whole phases fuse into
+ADDW/GRAD/MPI/PRE/FILTER/FIND/STAT/LOSS); here whole phases fuse into
 single XLA programs, so the equivalent granularity is: ROLL (acting +
 ingest), TRAIN (grad chunk), REFRESH (1000-step sweeps), HOST (everything
 else). jax.profiler traces remain available for op-level views.

@@ -77,7 +77,7 @@ def test_slow_env_does_not_block_fast_envs():
     assert fast_steps.min() > 3 * max(slow_steps, 1), \
         (slow_steps, fast_steps)
     # solo-rate retention is inherently load-sensitive on a shared CI
-    # box (observed 78% under a concurrent TPU job, >=95% unloaded), so
+    # box (observed 78% under a concurrent job, >=95% unloaded), so
     # the bound is slack; the ratio assertion above carries the proof
     assert fast_steps.mean() >= 0.6 * solo_rate, \
         f"fast envs at {fast_steps.mean():.0f} steps vs solo " \

@@ -41,74 +41,10 @@ class TestSharded:
         shard-local gradient sums equals the single-device batch sum —
         the reference's MPI_Iallreduce semantics, Optimizer.cpp:110-119,
         HyperParameters::defineDistributedLearning)."""
-        import jax.numpy as jnp
-        from jax import shard_map
-        from jax.sharding import PartitionSpec as P
-        from smarties_tpu.algos.vracer import VRacer
-        from smarties_tpu.parallel.mesh import AXIS, replay_pspec
-        from smarties_tpu.replay import buffer as rb
-
-        K, B = 4, 32
-        cfg = small_cfg(batchSize=B, randSeed=7)
-        algo = VRacer(cartpole.MDP, cfg)
-        key = jax.random.PRNGKey(0)
-        params, opt = algo.init(key)
-
-        # one replay holding 16 short random episodes (4 per future shard)
-        n_slots, max_len, dimS = 16, 32, cartpole.MDP.dim_state_observed
-        rs = rb.init_replay(n_slots, max_len, dimS, 1, 2,
-                            cfg.clipImpWeight,
-                            mu_init=rb.safe_mu(cartpole.MDP))
-        ks = jax.random.split(key, 5)
-        L1 = max_len + 1
-        rs = rs._replace(
-            ep_id=jnp.arange(n_slots, dtype=jnp.int32),
-            length=jnp.full((n_slots,), 20, jnp.int32),
-            states=jax.random.normal(ks[0], (n_slots, L1, dimS)) * 0.3,
-            actions=jax.random.normal(ks[1], (n_slots, L1, 1)) * 0.5,
-            mus=jnp.concatenate([
-                jax.random.normal(ks[2], (n_slots, L1, 1)) * 0.3,
-                jnp.ones((n_slots, L1, 1))], -1),
-            rewards=jax.random.normal(ks[3], (n_slots, L1)) * 0.1,
-            rho=jnp.ones((n_slots, L1)),
-            qret=jax.random.normal(ks[4], (n_slots, L1)) * 0.2)
-
-        # pinned global batch: 8 samples in each shard's slot range
-        k_ep, k_t = jax.random.split(jax.random.PRNGKey(42))
-        ep_local = jax.random.randint(k_ep, (K, B // K), 0, n_slots // K)
-        t_pin = jax.random.randint(k_t, (K, B // K), 0, 19)
-        ep_global = (ep_local
-                     + jnp.arange(K, dtype=jnp.int32)[:, None]
-                     * (n_slots // K)).reshape(-1)
-
-        key_step = jax.random.PRNGKey(99)
-        p1, o1, _, _ = jax.jit(lambda p, o, r: algo.train_step(
-            p, o, r, key_step,
-            sample_override=(ep_global, t_pin.reshape(-1))))(
-                params, opt, rs)
-
-        # sharded: each shard holds its 4 episodes and its 8 samples
-        mesh = make_mesh(K)
-        rs_sp = replay_pspec(rs)
-
-        def sharded(p, o, r, epl, tl):
-            p, o, r, _ = algo.train_step(
-                p, o, r, key_step, axis_name=AXIS,
-                sample_override=(epl.reshape(-1), tl.reshape(-1)))
-            return p, o
-
-        f = jax.jit(shard_map(
-            sharded, mesh=mesh,
-            in_specs=(P(), P(), rs_sp, P(AXIS), P(AXIS)),
-            out_specs=(P(), P()), check_vma=False))
-        p4, o4 = f(params, opt, rs,
-                   ep_local.reshape(K, 1, B // K),
-                   t_pin.reshape(K, 1, B // K))
-
-        for a, b in zip(jax.tree_util.tree_leaves(p1),
-                        jax.tree_util.tree_leaves(p4)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=2e-5, atol=2e-6)
+        from smarties_tpu.utils.harness import grad_parity
+        p1, p4 = grad_parity(4)
+        for a, b in zip(p1, p4):
+            np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6)
 
 
 class TestRebalance:

@@ -6,27 +6,19 @@ updateReturnEstimator (:23-44).
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from smarties_tpu.ops.returns import (batched_return_estimate,
                                       episode_return_estimate)
+from smarties_tpu.utils.harness import reference_return_estimate
 
 
 def reference_recursion(r, V, A, rho, T, terminal, gamma, lam, mode="retrace",
                         baseline=0.0):
-    """Literal python translation of the reference loops (float64)."""
-    q = np.zeros(len(r))
-    q[T] = 0.0 if terminal else V[T]
-    for t in range(T - 1, -1, -1):
-        cw = min(rho[t + 1], 1.0)
-        if mode == "GAE":
-            q[t] = r[t + 1] + gamma * (V[t + 1] + lam * (q[t + 1] - V[t + 1]))
-        else:
-            q[t] = r[t + 1] + gamma * (
-                V[t + 1] + lam * cw * (q[t + 1] - A[t + 1] - V[t + 1]))
-            if mode == "retraceExplore":
-                e = abs(q[t + 1] - A[t + 1] - V[t + 1]) - baseline
-                q[t] = (1 - gamma) * e + q[t]
-    return q
+    """The float64 reference recursion on one episode."""
+    return reference_return_estimate(
+        *(np.asarray(x)[None] for x in (r, V, A, rho)), [T], [terminal],
+        gamma, lam, mode, err_baseline=baseline)[0]
 
 
 def make_episode(L, T, terminal, seed=0):
@@ -88,3 +80,40 @@ class TestRetrace:
             jnp.asarray(A, jnp.float32), jnp.asarray(rho, jnp.float32),
             jnp.asarray(T, jnp.int32), jnp.asarray(True), 0.9, 0.95)
         np.testing.assert_allclose(got[T - 1], r[T] + 0.9 * V[T], rtol=1e-5)
+
+
+class TestFullBufferSweep:
+    """The whole-buffer sweep the refresh runs (ragged episode counts,
+    L+1 not a power of two, the two affine modes and the sequential
+    retraceExplore) against the float64 reference recursion, every
+    episode and every time step."""
+
+    @pytest.mark.parametrize("mode", ["retrace", "GAE", "retraceExplore"])
+    @pytest.mark.parametrize("E,L", [(1, 3), (33, 20), (200, 36)])
+    def test_matches_reference(self, E, L, mode):
+        rng = np.random.RandomState(E)
+        r = rng.randn(E, L + 1).astype(np.float32)
+        V = rng.randn(E, L + 1).astype(np.float32)
+        A = rng.randn(E, L + 1).astype(np.float32)
+        rho = np.exp(rng.randn(E, L + 1)).astype(np.float32)
+        lens = rng.randint(1, L + 1, E).astype(np.int32)
+        lens[0] = L
+        terms = rng.rand(E) > 0.5
+        got = np.asarray(batched_return_estimate(
+            *(jnp.asarray(x) for x in (r, V, A, rho, lens, terms)),
+            0.995, 0.95, mode, err_baseline=0.3))
+        want = reference_return_estimate(r, V, A, rho, lens, terms,
+                                         0.995, 0.95, mode, err_baseline=0.3)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        for e in range(E):
+            np.testing.assert_array_equal(got[e, lens[e] + 1:], 0.0)
+
+    def test_reference_by_hand(self):
+        """The float64 reference itself, on a hand-computed episode."""
+        r = np.asarray([[0.0, 1.0, 2.0, 3.0]])
+        v = np.full_like(r, 0.5)
+        zero = np.zeros_like(r)
+        q = reference_return_estimate(r, v, zero, np.ones_like(r), [3],
+                                      [False], 1.0, 1.0, "GAE")
+        # lambda = gamma = 1: q[t] = sum of rewards after t + V[T]
+        np.testing.assert_allclose(q[0], [6.5, 5.5, 3.5, 0.5])

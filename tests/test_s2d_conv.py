@@ -1,7 +1,7 @@
 """Space-to-depth first-conv equivalence (models/net.py _s2d_stride).
 
 The Mnih-style strided first conv over few stacked frames is re-expressed
-as a stride-1 conv over s*s-blocked channels (MXU-friendly). Same index
+as a stride-1 conv over s*s-blocked channels (deeper contraction). Same index
 set summed in a different order: forward and parameter gradients must
 match the direct conv to fp tolerance, for both the flat-CHW input path
 and the pre-shaped NHWC path, f32 and bf16.

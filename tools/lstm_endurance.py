@@ -1,13 +1,10 @@
 """6M-step LSTM POMDP endurance run (VERDICT r4 #6 'done' criterion).
 
-r4's LSTM fused cycle crashed the TPU worker once mid-run (786k/1.5M);
-train_fused now bounds the dispatched queue (fence_every, default 16384
-grad steps for recurrent nets) and retries from a host snapshot on
-worker loss. This runs the RACER_RNN recipe on the no-velocity
-cart-pole POMDP for 6M grad steps unattended and reports wall, crash
-retries, and the final deterministic eval.
+Runs the RACER_RNN recipe on the no-velocity cart-pole POMDP for 6M
+grad steps of Trainer.train_fused unattended and reports wall time and
+the final deterministic eval.
 
-Run on the default (TPU) env, ONE job at a time.
+Run on the GPU as the only JAX process on the card.
 """
 import json
 import os
@@ -65,9 +62,6 @@ def main():
         else 0,
         "eval_mean": round(float(np.mean(ev)), 2),
         "eval_std": round(float(np.std(ev)), 2),
-        # crash recoveries actually taken by train_fused (0 == the run
-        # also never needed the retry path)
-        "worker_crash_retries": tr.fused_retries,
         "completed_unattended": True,
     }
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
